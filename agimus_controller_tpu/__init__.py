@@ -1,10 +1,10 @@
-"""agimus_controller_tpu — TPU-native whole-body MPC engine.
+"""agimus_controller_tpu — batched, accelerator-native whole-body MPC engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``agimus-project/agimus_controller``: receding-horizon MPC for torque-controlled
 manipulators. The reference orchestrates C++ numerics (Pinocchio dynamics,
 Crocoddyl OCP models, mim_solvers CSQP) from Python; here every numeric path is
-a pure, jittable, batched JAX function designed for TPU:
+a pure, jittable, batched JAX function designed for an accelerator:
 
 - ``ops``     — spatial algebra, FK, RNEA, CRBA, forward dynamics, residuals,
                 activations, collision distances (the Pinocchio/Crocoddyl/colmpc

@@ -15,7 +15,6 @@ from ..mpc.warm_start import (
     WarmStartShiftPreviousSolutionForceFeedback,
 )
 from ..ocp.goal_reaching import OCPGoalReaching
-from ..ocp.yaml_compiler import load_ocp_spec
 
 DEFINITIONS_DIR = Path(__file__).resolve().parent.parent / "ocp" / "definitions"
 
@@ -46,6 +45,9 @@ def _goal_reaching(model, params, ocp_params: OCPParams, *, ee_frame,
 @register_ocp("yaml")
 def _yaml(model, params, ocp_params: OCPParams, *, yaml_file, ee_frame=None,
           dtype=jnp.float32, ring=None, **kw):
+    # PyYAML is needed only by the YAML-defined OCPs
+    from ..ocp.yaml_compiler import load_ocp_spec
+
     spec = load_ocp_spec(
         yaml_file, model, horizon=ocp_params.horizon_size, dt=ocp_params.dt,
         dt_factor_n_seq=tuple(ocp_params.dt_factor_n_seq),

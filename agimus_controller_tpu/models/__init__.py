@@ -1,6 +1,6 @@
 """Robot model layer: URDF/SRDF -> static model-constant arrays.
 
-TPU-native equivalent of the reference's model factory
+JAX-native equivalent of the reference's model factory
 (`agimus_controller/factory/robot_model.py`): instead of building a mutable
 Pinocchio model object, the URDF is compiled host-side into a static topology
 (`RobotModel`) plus a pytree of numeric constants (`ModelParams`) that flow

@@ -1,6 +1,6 @@
 """Static robot model structures.
 
-Split deliberately (TPU-first): the *topology* (`RobotModel`) is plain Python
+Split deliberately (for jit): the *topology* (`RobotModel`) is plain Python
 — tuples of ints/strings, hashable, closed over at trace time so XLA unrolls
 the kinematic tree — while every *numeric constant* lives in `ModelParams`, a
 pytree of arrays passed as a runtime argument. That makes model-parameter

@@ -17,7 +17,7 @@ actually exercise so a reference-shipped ``.xacro`` drops straight into
   caller-supplied ``packages`` mapping; unresolvable includes fall back
   to the BUILTIN macro library below (warn) instead of failing, because
   the reference's includes pull macros from robot-description packages
-  (franka_description utils) that a TPU host does not install;
+  (franka_description utils) that this engine's hosts do not install;
 - builtin ``collision_capsule`` macro (the one external macro the
   reference's environment files call): emits a named cylinder collision
   the URDF compiler's ``collision_as_capsule=True`` path converts to a

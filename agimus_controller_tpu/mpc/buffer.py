@@ -6,7 +6,7 @@ numpy pairs and spatial vectors are `[w; v]` 6-vectors instead of pinocchio
 objects, everything else is field-compatible so message conversions port
 1:1.
 
-The buffer itself is a TPU-first redesign (SURVEY.md §7 step 6): a
+The buffer itself is a device-first redesign (SURVEY.md §7 step 6): a
 preallocated ring with an explicit read head (every mutation is O(1), no
 list shifting), multi-resolution horizon extraction computed vectorially
 from the `DTFactorsNSeq` spec, and an optional PACKED-ROW lane: each point

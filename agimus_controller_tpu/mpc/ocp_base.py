@@ -141,8 +141,8 @@ class OCPJax(OCPBase):
 
         solver_kind = self._ocp_params.solver
         if solver_kind == "auto":
-            # Default to the batch-native SQP at B=1 — the ~2 ms latency
-            # path (reference analog: its runtime solver IS the fast path,
+            # Default to the batch-native SQP at B=1 — the latency path
+            # (reference analog: its runtime solver IS the fast path,
             # `ocp_base_croco.py:64-80`). Fall back only where the batch
             # solver has a capability gap, and say why.
             reason = None  # no known capability gaps (r05: manifold+soft

@@ -1,4 +1,4 @@
-"""Device-resident reference ring: the TPU-first tick data path.
+"""Device-resident reference ring: the device-first tick data path.
 
 The reference updates its OCP by mutating T+1 crocoddyl nodes per tick from
 Python (`ocp_croco_generic.py:855-892`) — its documented hot path. Round 1

@@ -1,6 +1,6 @@
 """Fused MPC tick: warm-start shift + ring gather + solve in ONE dispatch.
 
-The TPU-first form of the reference's 100 Hz `run_callback`
+The device-resident form of the reference's 100 Hz `run_callback`
 (`agimus_controller_ros/agimus_controller.py:474-523`): everything that
 iterates per tick lives on device —
 
@@ -33,6 +33,7 @@ from ..ocp.costs import CostFunctions
 from ..ocp.spec import ProblemSpec
 from ..ops import integrator
 from ..solver.csqp import CSQPSettings
+from ..solver.precision import highest_precision
 from ..solver.sqp_batch import make_batch_sqp
 from .ring import RefRing, gather_horizon_rows
 
@@ -111,7 +112,7 @@ def make_fused_tick(
             kkt=sol.kkt[0], iters=sol.iters[0], converged=sol.converged[0],
         )
 
-    return jax.jit(tick)
+    return jax.jit(highest_precision(tick))
 
 
 class FusedTickRunner:

@@ -1,6 +1,6 @@
 """Cost/constraint assembly: compile a ProblemSpec into jitted stage functions.
 
-This is the TPU-native replacement for Crocoddyl's CostModelSum +
+This is the JAX-native replacement for Crocoddyl's CostModelSum +
 DifferentialActionModelFreeFwdDynamics + IntegratedActionModelEuler +
 ConstraintModelManager object graph (`ocp/ocp_croco_generic.py:560-762`):
 the spec compiles once into pure functions

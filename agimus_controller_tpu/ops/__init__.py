@@ -1,4 +1,4 @@
-"""Core numeric kernels: the TPU-native replacement for the reference's C++
+"""Core numeric kernels: the JAX-native replacement for the reference's C++
 numeric stack (Pinocchio / Crocoddyl residuals / colmpc; SURVEY.md §2b).
 
 Every function here is pure, jittable, differentiable and written for a

@@ -1,6 +1,6 @@
 """Activation models: a(r) plus analytic first/second derivatives.
 
-TPU-native equivalents of the activation surface the reference uses
+JAX-native equivalents of the activation surface the reference uses
 (`crocoddyl.ActivationModelWeightedQuad`, `colmpc.ActivationModelExp` /
 `ActivationModelQuadExp`; DSL nodes at `ocp/ocp_croco_generic.py:95-143`).
 

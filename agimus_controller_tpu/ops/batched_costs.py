@@ -115,9 +115,9 @@ def _quat_c(R):
 
 def _atan2_unit_fq(s, c):
     """atan2(s, c) restricted to the first quadrant of the unit circle
-    (s, c >= 0, s^2 + c^2 = 1) without the `atan2` primitive — Pallas TPU
-    has no inverse-trig lowering. Three exact half-angle reductions map the
-    angle into [0, pi/8] where an odd Taylor to w^19 is ~2e-16 accurate:
+    (s, c >= 0, s^2 + c^2 = 1) from square roots and one polynomial, without
+    the `atan2` primitive. Three exact half-angle reductions map the angle
+    into [0, pi/8] where an odd Taylor to w^19 is ~2e-16 accurate:
 
         t = tan(phi/2) = s / (1 + c),   u = tan(phi/4),  w = tan(phi/8)
     """
@@ -141,7 +141,7 @@ def _log3_c(R):
     # float32-robust branch: s2 carries ~1e-12 of rounding noise near the
     # identity, and theta/s vs its 2/c limit agree to ~s2 there — a 1e-8
     # threshold keeps the Jacobian branch choice deterministic across
-    # backends (XLA vs pallas) without losing accuracy
+    # backends without losing accuracy
     small = s2 < 1e-8
     s = jnp.sqrt(jnp.where(small, jnp.ones_like(s2), s2))
     theta = 2.0 * _atan2_unit_fq(s, c)
@@ -295,9 +295,9 @@ def make_batched_cost_pack(
     # (or python-float 0.0 for structural zeros, or shape-() tracers for
     # state-independent entries like activation weights) and stacked into
     # dense [B, ...] arrays exactly ONCE per pack. The dense-per-item
-    # einsum route lowered to MXU-hostile [B, 14, 14] batched tiny matmuls
-    # and dominated solve time (~90 ms/iter at B*T = 409600 on v5e);
-    # the component MAC loops fuse into full-lane VPU code instead.
+    # einsum route lowers to [B, 14, 14] batched tiny matmuls that no
+    # matrix unit runs well; the component MAC loops fuse into large
+    # elementwise kernels instead.
     # ------------------------------------------------------------------
 
     def _cadd(a, b):

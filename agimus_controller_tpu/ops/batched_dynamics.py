@@ -1,14 +1,13 @@
 """Component-form batched dynamics: the throughput kernel path.
 
-Why this exists (measured on TPU v5e, see bench notes in the commit):
-the straightforward `vmap(euler_step)` lowers to thousands of tiny ops on
-`[B, 3, 3]`-shaped arrays; the TPU pads each 3x3 into an (8, 128) tile so
-~99% of every vector register is wasted, and throughput lands near 0.1% of
-peak. Here every *scalar* of the rigid-body computation is a `[B]` array
-(structure dims live in Python tuples, not array dims), so XLA fuses the
-whole step into large elementwise kernels with the batch dim mapped straight
-onto VPU lanes — the CusADi-style "scalar SSA over the batch" layout
-(PAPERS.md), with no hand-written kernels needed.
+Why this exists: the straightforward `vmap(euler_step)` lowers to
+thousands of tiny ops on `[B, 3, 3]`-shaped arrays, whose trailing 3x3
+dimensions fit no vector unit. Here every *scalar* of the rigid-body
+computation is a `[B]` array (structure dims live in Python tuples, not
+array dims), so XLA fuses the whole step into large elementwise kernels with
+the batch dim mapped straight onto the vector lanes — the CusADi-style
+"scalar SSA over the batch" layout (PAPERS.md), with no hand-written kernels
+needed.
 
 Also uses the cheap derivative route: for fd(q,v,tau) = M~^-1 (tau - b),
   d a / d(q,v) = -M~^-1 * d rnea(q,v,a) / d(q,v)   (a held fixed)
@@ -107,8 +106,8 @@ class _StaticModel:
         self.parents = model.parents
         self.types = model.joint_types
         # plain Python floats (weak-typed): np.float64 scalars would promote
-        # float32 tiles to float64 under jax_enable_x64 — fatal inside pallas
-        # kernels (dtype-mismatched vjp) and slow everywhere else
+        # float32 arrays to float64 under jax_enable_x64 (dtype-mismatched
+        # vjp, and slow)
         p = lambda a: tuple(
             float(v) for v in np.asarray(a, dtype=np.float64).reshape(-1))
         self.joint_rot = [p(params.joint_rot[i]) for i in range(model.nj)]
@@ -519,8 +518,7 @@ def make_batched_step_with_derivs(model: RobotModel, params: ModelParams,
     - "vjp": nj reverse-mode pulls (~2x cheaper than 2nj forward tangents).
       Mathematically identical to "analytic" (tested to 2e-5 in f32); its
       scan-of-scans graph is ~10x smaller, which matters only for XLA:CPU
-      compile time (the virtual-mesh dryrun) — on TPU "analytic" is 2x
-      faster at runtime.
+      compile time (the virtual-mesh dryrun).
     - "jvp": 2nj forward tangents via `jax.linearize`.
 
     When ``deriv_mode`` is None it resolves from ``AGIMUS_DERIV_MODE``

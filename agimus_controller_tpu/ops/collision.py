@@ -1,6 +1,6 @@
 """Capsule/sphere signed-distance kernels with subgradient-consistent clamps.
 
-TPU-native replacement for colmpc's `ResidualDistanceCollision` + coal/hpp-fcl
+JAX-native replacement for colmpc's `ResidualDistanceCollision` + coal/hpp-fcl
 narrow phase (SURVEY.md §2b N5/N6). The reference reduces every collision
 shape to capsules/spheres at model build (`factory/robot_model.py:261-302`),
 so the closed-form segment-segment distance covers the whole geometry set —

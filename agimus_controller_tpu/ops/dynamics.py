@@ -1,15 +1,16 @@
 """Batched rigid-body dynamics: RNEA, CRBA, forward dynamics.
 
-TPU-native replacement for the dynamics kernels the reference consumes from
+JAX-native replacement for the dynamics kernels the reference consumes from
 Pinocchio/Crocoddyl (SURVEY.md §2b N1/N3): `pin.rnea` (warm-start inverse
 dynamics, `warm_start_reference.py:82-88`; trajectory efforts,
 `trajectories/generic_trajectory.py:37-65`) and
 `DifferentialActionModelFreeFwdDynamics.calc` (forward dynamics with armature,
 `ocp_base_croco.py:184-189`).
 
-Design notes (TPU-first):
+Design notes:
 - The kinematic tree is static: joint recursions are Python loops unrolled at
-  trace time into straight-line fused VPU code. Batch with `vmap` outside.
+  trace time into straight-line fused elementwise code. Batch with `vmap`
+  outside.
 - Forward dynamics uses the mass-matrix route `solve(M + diag(armature),
   tau - nle)` rather than the O(n) articulated-body recursion: at nq = 7 a
   7x7 Cholesky is a handful of fused ops, the armature term is exact (this is

@@ -1,6 +1,6 @@
 """Batched forward kinematics and frame Jacobians.
 
-TPU-native equivalent of the Pinocchio kinematics surface the reference uses:
+JAX-native equivalent of the Pinocchio kinematics surface the reference uses:
 `pin.forwardKinematics` / `pin.updateFramePlacements`
 (`agimus_controller/trajectories/trajectory_base.py:38-45`,
 `plots/pin_utils.py:21-200`), `pin.computeFrameJacobian` (IK in

@@ -1,6 +1,6 @@
 """Residual kernels r(x, u, ref): the Crocoddyl residual surface as pure fns.
 
-TPU-native equivalents of the residual models the reference instantiates from
+JAX-native equivalents of the residual models the reference instantiates from
 its YAML DSL (`ocp/ocp_croco_generic.py:154-557`): State, Control,
 ControlGrav, FramePlacement, FrameTranslation, FrameRotation, FrameVelocity,
 VisualServoing, DistanceCollision. References ("obj.reference" property

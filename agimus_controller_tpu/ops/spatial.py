@@ -1,6 +1,6 @@
 """Spatial (screw) algebra in JAX: SO(3)/SE(3) maps and 6-D motion/force ops.
 
-TPU-native equivalent of the SE3/Motion/Force algebra the reference consumes
+JAX-native equivalent of the SE3/Motion/Force algebra the reference consumes
 from Pinocchio (reference: `pin.SE3/Motion/Force`, `pin.integrate`, `pin.log`,
 quaternion conversions — e.g. `agimus_controller/trajectory.py:9-178`,
 `agimus_controller_ros/ros_utils.py:22-170`).

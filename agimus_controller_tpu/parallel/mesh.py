@@ -1,10 +1,10 @@
 """Mesh construction and sharded batch solving.
 
 Design (SURVEY.md §2c / §5): scenarios are data-parallel over the mesh's
-``batch`` axis (DCN across hosts, ICI within a slice); every solve is
-independent so the only collectives are those XLA inserts for the sharded
-batch. Horizon-parallel Riccati (sequence-parallel analog) layers on later
-via associative scan — the solver itself is already pure and shardable.
+``batch`` axis, within one host or across hosts; every solve is independent
+so the only collectives are those XLA inserts for the sharded batch.
+Horizon-parallel Riccati (sequence-parallel analog) layers on later via
+associative scan — the solver itself is already pure and shardable.
 """
 
 from __future__ import annotations
@@ -101,31 +101,25 @@ def sharded_batch_csqp(model, params, spec, cf, settings, mesh: Mesh,
 
 
 def sharded_batch_sqp(model, params, spec, cf, settings, mesh: Mesh,
-                      axis_name: str = "batch", backend: str = "auto"):
+                      axis_name: str = "batch"):
     """The latency solver (multiple-shooting SQP/CSQP, `solver/sqp_batch.py`)
-    sharded over the mesh. Constrained specs get the full ADMM treatment;
-    scenarios are data-parallel so collectives stay on the scalar
-    convergence reductions."""
+    with scenarios split over the mesh. Each device runs the whole solve on
+    its own scenarios under `shard_map`: scenarios never interact, so no
+    collective is needed, and no device's while-loop waits on another's
+    convergence."""
     from ..solver.sqp_batch import make_batch_sqp
 
-    solve = make_batch_sqp(model, params, spec, cf, settings, backend=backend)
-    spec_b = NamedSharding(mesh, P(axis_name))
-    spec_r = NamedSharding(mesh, P())
-
-    def sharded(x0s, refs, xs0, us0):
-        x0s = jax.lax.with_sharding_constraint(x0s, spec_b)
-        xs0 = jax.lax.with_sharding_constraint(xs0, spec_b)
-        us0 = jax.lax.with_sharding_constraint(us0, spec_b)
-        refs = {k: jax.lax.with_sharding_constraint(v, spec_r) for k, v in refs.items()}
-        return solve(x0s, refs, xs0, us0)
-
-    return jax.jit(sharded)
+    solve = make_batch_sqp(model, params, spec, cf, settings)
+    return jax.jit(jax.shard_map(
+        solve, mesh=mesh,
+        in_specs=(P(axis_name), P(), P(axis_name), P(axis_name)),
+        out_specs=P(axis_name), check_vma=False))
 
 
 def sharded_batch_fddp(model, params, spec, cf, settings, mesh: Mesh,
                        axis_name: str = "batch", riccati: str = "component"):
     """Batch-native FDDP sharded over the mesh: the scenario axis is data
-    parallel across chips (DCN across hosts, ICI within a slice); solves are
+    parallel across devices (within one host or across hosts); solves are
     independent so XLA keeps every per-scenario op local — linear scaling.
     ``riccati="pscan"`` selects the horizon-parallel associative-scan
     backward sweep (the sequence-parallel analog, SURVEY.md §5)."""

@@ -14,7 +14,6 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
-import yaml
 
 from ..mpc.ocp_base import OCPParams
 from .controller import RuntimeParams
@@ -57,6 +56,8 @@ def load_engine_config(source: Union[str, Path, dict]) -> EngineConfig:
             "\n" not in str(source) and Path(str(source)).is_file()
         )
         text = Path(source).read_text() if is_path else str(source)
+        import yaml  # only YAML sources need PyYAML
+
         tree = yaml.safe_load(text)
     # unwrap the node-name root and the ros __params__ layer when present
     for key in ("agimus_controller_params", "agimus_controller", "ros__parameters"):

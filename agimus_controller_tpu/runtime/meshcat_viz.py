@@ -3,7 +3,7 @@
 
 The reference renders the collision model (capsules/spheres) in meshcat and
 replays planned/solved trajectories.  meshcat is an optional dependency
-here (not installed in the TPU image): `MeshcatReplay` gates on the import
+here (often not installed): `MeshcatReplay` gates on the import
 with a clear error, and `export_scene_json` provides the headless fallback
 — the same primitive scene (type/radius/length/per-frame placements) as a
 JSON document any external viewer (including a meshcat session elsewhere)

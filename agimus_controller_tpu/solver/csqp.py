@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 from ..ocp.costs import CostFunctions
 from .fddp import SolverSettings, _total_cost
+from .precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +97,7 @@ def _violation(g, lb, ub):
     return jnp.maximum(jnp.maximum(lb - g, g - ub), 0.0)
 
 
+@highest_precision
 def solve_csqp(
     cf: CostFunctions,
     x0,

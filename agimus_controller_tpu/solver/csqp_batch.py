@@ -33,6 +33,7 @@ from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
 from ..ops.batched_dynamics import make_batched_step, make_batched_step_with_derivs
 from .csqp import CSQPSettings, CSQPSolution, _violation
+from .precision import highest_precision
 from .tuning import scan_unroll
 
 
@@ -532,4 +533,4 @@ def make_batch_csqp(
             converged=converged,
         )
 
-    return solve
+    return highest_precision(solve)

@@ -1,12 +1,12 @@
 """Feasibility-driven DDP solver (Crocoddyl `SolverFDDP` semantics) in JAX.
 
-TPU-native replacement for the unconstrained path of mim_solvers/Crocoddyl
+JAX-native replacement for the unconstrained path of mim_solvers/Crocoddyl
 (reference call site: `OCPBaseCroco.solve`, `ocp_base_croco.py:142-182`).
 Everything is a fixed-shape jitted program:
 
 - stage derivatives are evaluated for ALL nodes at once with `jax.vmap`
   (the reference parallelizes this with OpenMP threads across the horizon,
-  `ocp_base_croco.py:62`; on TPU it is one fused batched evaluation),
+  `ocp_base_croco.py:62`; here it is one fused batched evaluation),
 - the backward Riccati recursion is a `lax.scan` over the horizon,
 - the line search evaluates the whole ladder of step lengths as one extra
   batched rollout (`vmap` over alpha) and selects the first acceptable step
@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ocp.costs import CostFunctions
+from .precision import highest_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +142,7 @@ def _forward(cf: CostFunctions, T, x0, xs, us, ks, Ks, fs, alpha, refs):
     return xs_try, us_new, cost_try
 
 
+@highest_precision
 def solve_fddp(
     cf: CostFunctions,
     x0,

@@ -28,6 +28,7 @@ from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
 from ..ops.batched_dynamics import make_batched_step, make_batched_step_with_derivs
 from .fddp import Solution, SolverSettings
+from .precision import highest_precision
 
 
 def _tri_solve(L, b):
@@ -392,4 +393,4 @@ def make_batch_fddp(
             converged=converged | (kkt_f < settings.termination_tolerance),
         )
 
-    return solve
+    return highest_precision(solve)

@@ -2,7 +2,8 @@
 
 The sequential backward Riccati pass is O(T) depth — the one serial part of
 the solver (the reference's mim_solvers has the same bottleneck; SURVEY.md §5
-"long-context" flags the associative-scan composition as the TPU answer, cf.
+"long-context" flags the associative-scan composition as the parallel
+answer, cf.
 PAPERS.md "The Parallelization of Riccati Recursion" and Särkkä &
 García-Fernández's parallel LQT).
 

@@ -4,7 +4,7 @@
 device program*.  This module shards the horizon itself over a
 `jax.sharding.Mesh` with `shard_map` — the design SURVEY.md §5
 ("long-context") calls for: blocked scans with the Riccati block interfaces
-reduced via ICI collectives (cf. PAPERS.md, "The Parallelization of Riccati
+reduced via device collectives (cf. PAPERS.md, "The Parallelization of Riccati
 Recursion"; the reference's mim_solvers runs the same recursion sequentially
 in C++ on one CPU).
 
@@ -23,7 +23,7 @@ Two-level scheme, exact (no approximation):
    d1/d2 line-search expectations are `psum`-reduced over the axis.
 
 Communication: one all_gather of n_dev elements + two scalar psums per
-backward sweep — O(n_dev * nx^2) bytes on ICI, independent of T.
+backward sweep — O(n_dev * nx^2) bytes between devices, independent of T.
 """
 
 from __future__ import annotations

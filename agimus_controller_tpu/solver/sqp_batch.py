@@ -6,18 +6,15 @@ This implements the reference's *actual runtime solver* semantics
 
     xs_try = xs + alpha * dxs,   us_try = us + alpha * dus
 
-instead of FDDP's nonlinear rollout. On TPU this is the difference between
-real-time and not: the nonlinear rollout is a sequential ``lax.scan`` over
-the horizon whose tiny per-node body is dominated by op dispatch (~28 ms at
-T=100 measured on v5e — ~90% of `fddp_batch` solve time), while every stage
-here is node-parallel:
+instead of FDDP's nonlinear rollout. The nonlinear rollout is a sequential
+``lax.scan`` over the horizon whose tiny per-node body is dominated by
+per-step overhead, while every stage here is node-parallel:
 
-- dynamics + analytic derivatives: ONE flattened [T*B] dispatch
-  (`make_batched_step_with_derivs`, ~0.9 ms),
-- cost Gauss-Newton packs: vmapped over nodes (~1.1 ms),
+- dynamics + analytic derivatives and the cost Gauss-Newton packs: one
+  flattened [T*B] evaluation (`make_batched_step_with_derivs` +
+  `make_batched_cost_pack`),
 - Riccati backward: factor-once batch-minor sweep (`riccati_components`
-  layout, ~0.7 ms) — the only remaining sequential-in-T stage, with a tiny
-  body,
+  layout) — the only remaining sequential-in-T stage, with a tiny body,
 - QP (constrained case): OSQP-style ADMM over the *cached* Riccati
   factorization — each of up to ``max_qp_iters`` iterations is a cheap
   linear backward/forward vector sweep plus slack clip + dual update
@@ -45,6 +42,7 @@ from ..ocp.spec import ProblemSpec
 from ..ops.batched_costs import make_batched_cost_pack
 from ..ops.batched_dynamics import make_batched_step, make_batched_step_with_derivs
 from .csqp import CSQPSettings
+from .precision import highest_precision
 from .tuning import scan_unroll
 from .riccati_components import (
     _chol_lanes,
@@ -104,7 +102,6 @@ def make_batch_sqp(
     spec: ProblemSpec,
     cf: CostFunctions,
     settings: CSQPSettings = CSQPSettings(),
-    backend: str = "auto",
     trace: bool = False,
 ):
     """Build `solve(x0s [B,nx], refs, xs [B,T+1,nx], us [B,T,nu])
@@ -114,9 +111,9 @@ def make_batch_sqp(
     constraints get the full CSQP ADMM treatment. Multi-resolution horizons
     supported (per-node dt arrays feed the flattened dynamics dispatch).
 
-    ``backend``: "pallas" uses the fused Pallas dynamics kernels (TPU;
-    single-dispatch step/derivative evaluation), "xla" the component-form
-    XLA path, "auto" picks pallas on TPU.
+    Stage evaluation (dynamics, Jacobians, running-cost packs over the T*B
+    nodes) is the component-form XLA code on every platform. Matrix
+    products trace at HIGHEST precision.
     """
     T = spec.horizon
     nc = cf.n_constraints
@@ -128,51 +125,22 @@ def make_batch_sqp(
     # reference's StateMultibody semantics (`ocp_base_croco.py:36-41`)
     # threaded through the batch solver (VERDICT r03 #2).
     manifold = cf.ntan is not None
-    if manifold:
-        # manifold + soft contact composes: the ff cost pack's step/diff/
-        # integrate already carry the force-augmented state (ff_costs.py)
-        backend = "manifold"
-    if backend == "auto":
-        backend = ("pallas"
-                   if jax.default_backend() not in ("cpu",) else "xla")
     if soft:
-        backend = "xla"  # augmented-state dynamics; pallas kernels are rigid-body
-    stage_dk = stage_vk = term_dk = term_vk = None
-    if backend == "pallas":
-        from ..ops.pallas_costs import make_pallas_stage, make_pallas_terminal
-        from ..ops.pallas_dynamics import (
-            make_pallas_step,
-            make_pallas_step_derivs,
+        from ..ops.batched_dynamics import (
+            make_batched_soft_step,
+            make_batched_soft_step_with_derivs,
         )
 
-        stage_dk = make_pallas_stage(model, params, spec, derivs=True)
-        stage_vk = make_pallas_stage(model, params, spec, derivs=False)
-        term_dk = make_pallas_terminal(model, params, spec, derivs=True)
-        term_vk = make_pallas_terminal(model, params, spec, derivs=False)
-        if None in (stage_dk, stage_vk, term_dk, term_vk):
-            backend = "xla"  # unsupported cost kinds: fall back
-            stage_dk = stage_vk = term_dk = term_vk = None
-        else:
-            step_b = make_pallas_step(model, params)
-            step_d = make_pallas_step_derivs(model, params)
-    if backend == "xla":
-        if soft:
-            from ..ops.batched_dynamics import (
-                make_batched_soft_step,
-                make_batched_soft_step_with_derivs,
-            )
-
-            step_b = make_batched_soft_step(
-                model, params, spec.soft_contact)
-            step_d = make_batched_soft_step_with_derivs(
-                model, params, spec.soft_contact)
-        else:
-            step_b = make_batched_step(model, params)
-            step_d = make_batched_step_with_derivs(model, params)
-    elif backend == "manifold":
+        step_b = make_batched_soft_step(model, params, spec.soft_contact)
+        step_d = make_batched_soft_step_with_derivs(
+            model, params, spec.soft_contact)
+    elif manifold:
+        # manifold + soft contact composes: the ff cost pack's step/diff/
+        # integrate already carry the force-augmented state (ff_costs.py)
         step_b = step_d = None
-    elif backend not in ("pallas",):
-        raise ValueError(backend)
+    else:
+        step_b = make_batched_step(model, params)
+        step_d = make_batched_step_with_derivs(model, params)
 
     if manifold:
         sdiff_b = jax.vmap(cf.state_diff)
@@ -255,7 +223,7 @@ def make_batch_sqp(
 
     def cost_and_gaps(x0s, xs, us, refs):
         """(total cost [B], defects fs [T+1,B,ntan]) — the line-search merit
-        terms. On the pallas backend both come from ONE fused dispatch.
+        terms.
 
         The cost SUM accumulates in the sweep dtype (f64 when sweep_f64 is
         live): near the optimum the per-step descent is O(kkt^2) ~ 1e-7 of
@@ -267,25 +235,18 @@ def make_batch_sqp(
         nx = xs.shape[2]
         cdt = _sweep_dtype(xs.dtype, settings)
         x_flat, u_flat, dts_flat, t_idx = _flatten_nodes(xs, us)
-        if stage_vk is not None:
-            xnext_f, l_f = stage_vk(x_flat, u_flat, dts_flat, t_idx, refs)
-            (lT,) = term_vk(xs[-1], refs)
-            cost = (jnp.sum(l_f.reshape(T, B).astype(cdt), axis=0)
-                    + lT.astype(cdt))
-            xnext = xnext_f.reshape(T, B, nx)
+        costs = jax.vmap(
+            lambda x, u, t: stage_cost_b(x, u, t, refs)
+        )(xs[:-1], us, jnp.arange(T, dtype=jnp.int32))
+        cost = (jnp.sum(costs.astype(cdt), axis=0)
+                + term_cost_b(xs[-1], refs).astype(cdt))
+        if manifold:
+            xnext = jax.vmap(
+                lambda x, u, t: cf.step(x, u, t, refs)
+            )(x_flat, u_flat, t_idx).reshape(T, B, nx)
         else:
-            costs = jax.vmap(
-                lambda x, u, t: stage_cost_b(x, u, t, refs)
-            )(xs[:-1], us, jnp.arange(T, dtype=jnp.int32))
-            cost = (jnp.sum(costs.astype(cdt), axis=0)
-                    + term_cost_b(xs[-1], refs).astype(cdt))
-            if manifold:
-                xnext = jax.vmap(
-                    lambda x, u, t: cf.step(x, u, t, refs)
-                )(x_flat, u_flat, t_idx).reshape(T, B, nx)
-            else:
-                xnext = dyn_step(
-                    x_flat, u_flat, dts_flat, t_idx, refs).reshape(T, B, nx)
+            xnext = dyn_step(
+                x_flat, u_flat, dts_flat, t_idx, refs).reshape(T, B, nx)
         fs = _gaps_of(x0s, xs, xnext)
         return cost, fs
 
@@ -298,18 +259,6 @@ def make_batch_sqp(
         nx = xs.shape[2]
         nu = us.shape[2]
         x_flat, u_flat, dts_flat, t_idx = _flatten_nodes(xs, us)
-        if stage_dk is not None:
-            (xn, Fx, Fu, l, lx, lu, lxx, lxu, luu) = stage_dk(
-                x_flat, u_flat, dts_flat, t_idx, refs)
-            dyn = (xn.reshape(T, B, nx), Fx.reshape(T, B, nx, nx),
-                   Fu.reshape(T, B, nx, nu))
-            costs = (l.reshape(T, B), lx.reshape(T, B, nx),
-                     lu.reshape(T, B, nu), lxx.reshape(T, B, nx, nx),
-                     lxu.reshape(T, B, nx, nu), luu.reshape(T, B, nu, nu))
-            from ..ocp.costs import TerminalDerivs
-
-            lT, lxT, lxxT = term_dk(xs[-1], refs)
-            return dyn, costs, TerminalDerivs(lT, lxT, lxxT)
         if manifold:
             nt = cf.ntan
             d = jax.vmap(
@@ -936,4 +885,4 @@ def make_batch_sqp(
             trace_gap=tr_final[2] if trace else None,
         )
 
-    return solve
+    return highest_precision(solve)

@@ -3,7 +3,7 @@ debug_ocp.py:34-44`): load a recorded run, take one tick's initial state, and
 sweep ONE cost weight across a range of values, re-solving the OCP at each —
 the cost/solution sensitivity view used to tune weights offline.
 
-TPU-first twist: the sweep values ride the solver's scenario batch axis, so
+Batched twist: the sweep values ride the solver's scenario batch axis, so
 the whole sweep is ONE `make_batch_sqp` call instead of the reference's
 serial re-solve loop.
 

@@ -77,7 +77,7 @@ def test_host_local_to_global_roundtrip():
 
 def test_global_mesh_rejects_cross_host_t_groups(monkeypatch):
     # 2 hosts x 6 devices, t_shards=4: 6 % 4 != 0 so a t-row would span
-    # both hosts and the Riccati collectives would ride DCN (r04 advisor)
+    # both hosts and the Riccati collectives would cross hosts (r04 advisor)
     monkeypatch.setattr(jax, "process_count", lambda: 2)
     with pytest.raises(ValueError, match="does not divide"):
         make_global_mesh(t_shards=4, devices=jax.devices()[:8] + jax.devices()[:4])
@@ -137,8 +137,7 @@ def test_two_process_sharded_solve(tmp_path):
     xs0 = np.repeat(x0s[:, None], T + 1, axis=1)
     us0 = np.zeros((4, T, 7))
     st = CSQPSettings(max_iters=4, reg_init=1e-7)
-    solver = jax.jit(make_batch_sqp(model, params, spec, cf, st,
-                                    backend="xla"))
+    solver = jax.jit(make_batch_sqp(model, params, spec, cf, st))
     sol = solver(jnp.asarray(x0s), refs, jnp.asarray(xs0), jnp.asarray(us0))
     us_ref = np.asarray(sol.us)
 

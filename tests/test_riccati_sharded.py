@@ -1,8 +1,8 @@
 """Cross-device horizon-sharded Riccati vs the in-device reference.
 
 SURVEY.md §5 (long-context): the reference's mim_solvers runs the backward
-Riccati recursion sequentially; the TPU design shards the horizon over the
-mesh with block composites reduced via ICI collectives. These tests run the
+Riccati recursion sequentially; this design shards the horizon over the
+mesh with block composites reduced via device collectives. These tests run the
 8-virtual-device CPU mesh (conftest) and require exact agreement with the
 unsharded associative-scan implementation.
 """
