@@ -103,17 +103,23 @@ def sharded_batch_csqp(model, params, spec, cf, settings, mesh: Mesh,
 def sharded_batch_sqp(model, params, spec, cf, settings, mesh: Mesh,
                       axis_name: str = "batch"):
     """The latency solver (multiple-shooting SQP/CSQP, `solver/sqp_batch.py`)
-    with scenarios split over the mesh. Each device runs the whole solve on
-    its own scenarios under `shard_map`: scenarios never interact, so no
-    collective is needed, and no device's while-loop waits on another's
-    convergence."""
+    sharded over the mesh. Constrained specs get the full ADMM treatment;
+    scenarios are data-parallel so collectives stay on the scalar
+    convergence reductions."""
     from ..solver.sqp_batch import make_batch_sqp
 
     solve = make_batch_sqp(model, params, spec, cf, settings)
-    return jax.jit(jax.shard_map(
-        solve, mesh=mesh,
-        in_specs=(P(axis_name), P(), P(axis_name), P(axis_name)),
-        out_specs=P(axis_name), check_vma=False))
+    spec_b = NamedSharding(mesh, P(axis_name))
+    spec_r = NamedSharding(mesh, P())
+
+    def sharded(x0s, refs, xs0, us0):
+        x0s = jax.lax.with_sharding_constraint(x0s, spec_b)
+        xs0 = jax.lax.with_sharding_constraint(xs0, spec_b)
+        us0 = jax.lax.with_sharding_constraint(us0, spec_b)
+        refs = {k: jax.lax.with_sharding_constraint(v, spec_r) for k, v in refs.items()}
+        return solve(x0s, refs, xs0, us0)
+
+    return jax.jit(sharded)
 
 
 def sharded_batch_fddp(model, params, spec, cf, settings, mesh: Mesh,

@@ -20,7 +20,10 @@ from agimus_controller_tpu.ocp.spec import (
     default_references,
 )
 from agimus_controller_tpu.solver.csqp import CSQPSettings, solve_csqp
-from agimus_controller_tpu.solver.sqp_batch import make_batch_sqp
+from agimus_controller_tpu.solver.sqp_batch import (
+    make_batch_sqp,
+    make_stage_derivs,
+)
 from tests.test_csqp_batch import constrained_goal_problem
 from tests.test_robot_models import ENV_URDF
 
@@ -192,3 +195,30 @@ def test_batch_sqp_collision_constraint(panda_env):
     ]
     assert min(dists) >= lower - 2e-3, f"min distance {min(dists)}"
     assert min(dists) <= lower + 0.03, "constraint should be active"
+
+
+def test_stage_derivs_match_pointwise_reference(panda):
+    """The solver's derivative pass (`make_stage_derivs`, time-major blocks)
+    equals the pointwise `cf.stage_derivs` / `cf.terminal_derivs` at every
+    node, node (t, b) mapping to row t*B + b."""
+    model, params = panda
+    T, B = 4, 3
+    spec, cf, refs, x0, _ = constrained_goal_problem(model, params, T, 12.0)
+    rng = np.random.default_rng(1)
+    xs = jnp.asarray(np.asarray(x0) + 0.1 * rng.normal(size=(T + 1, B, 14)))
+    us = jnp.asarray(2.0 * rng.normal(size=(T, B, 7)))
+    dyn, costs, term = jax.jit(make_stage_derivs(model, params, spec, cf))(
+        xs, us, refs)
+    t_idx = jnp.repeat(jnp.arange(T), B)
+    want = jax.vmap(cf.stage_derivs, in_axes=(0, 0, 0, None))(
+        xs[:-1].reshape(T * B, 14), us.reshape(T * B, 7), t_idx, refs)
+    for got, ref in zip((*dyn, *costs),
+                        (want.xnext, want.Fx, want.Fu, want.cost, want.lx,
+                         want.lu, want.lxx, want.lxu, want.luu)):
+        np.testing.assert_allclose(
+            np.asarray(got).reshape(np.shape(ref)), np.asarray(ref),
+            rtol=1e-7, atol=1e-8)
+    want_T = jax.vmap(cf.terminal_derivs, in_axes=(0, None))(xs[-1], refs)
+    for got, ref in zip(term, want_T):
+        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                                   rtol=1e-7, atol=1e-8)
